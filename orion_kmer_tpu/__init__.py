@@ -1,9 +1,9 @@
-"""orion-kmer-tpu: a TPU-native k-mer engine.
+"""orion-kmer-tpu: an exact k-mer engine on the GPU.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
-``orion-kmer`` Rust CLI (reference: /root/reference/orion-kmer).  The
+A from-scratch JAX/XLA re-design of the capabilities of the
+``orion-kmer`` Rust CLI (github.com/motroy/orion-kmer).  The
 compute path (k-mer extraction, canonicalization, counting, set algebra,
-sketching) runs on TPU via JAX; host-side ingest (FASTA/FASTQ parsing +
+sketching) runs on the GPU via JAX; host-side ingest (FASTA/FASTQ parsing +
 2-bit packing) runs in native C++ with a Python fallback.
 
 Layer map (bottom-up; see SURVEY.md section 7):

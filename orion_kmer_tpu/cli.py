@@ -19,7 +19,7 @@ from .version import __version__
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="orion-kmer-tpu",
-        description="TPU-native k-mer toolkit (capabilities of orion-kmer)",
+        description="GPU k-mer toolkit (capabilities of orion-kmer)",
     )
     p.add_argument("--version", action="version", version=f"%(prog)s {__version__}")
     p.add_argument(
@@ -213,18 +213,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="Minimum reference breadth to report (classification mode)",
     )
 
-    # serve (TPU-native extension: resident warm-engine server; the
-    # per-process executable-load ladder makes fresh processes expensive
-    # on TPU backends -- see server.py)
+    # serve (extension: resident warm-engine server; device start-up
+    # and compiles make fresh processes expensive -- see server.py)
     sv = sub.add_parser("serve", help="Run a persistent engine server on a unix socket")
     sv.add_argument("--socket", required=True, help="Unix socket path to listen on")
-    sv.add_argument(
-        "--warm-k",
-        type=int,
-        nargs="*",
-        default=[],
-        help="Pre-warm the count program ladder for these k values at startup",
-    )
 
     # cohort (entrez-tool + hybrid finder CLI drivers)
     from .commands.cohort import add_cohort_parser

@@ -12,7 +12,7 @@ Semantics are bit-exact with the reference codec (orion-kmer/src/kmer.rs):
     lexicographic string order because the encoding is order-preserving
     and MSB-aligned (kmer.rs:99-106)
 
-This module is the *semantic oracle* for the TPU kernels in
+This module is the *semantic oracle* for the device kernels in
 ``orion_kmer_tpu.ops`` and the string encode/decode path for CLI output.
 """
 

@@ -3,7 +3,7 @@
 In-memory model mirrors the reference ``KmerDbV2`` (db_types.rs:8-14):
 ``k`` plus a mapping reference-name -> set of unique canonical k-mers.
 Here each set is a *sorted* numpy uint64 array -- sorted-unique arrays
-are the native layout for the TPU set-algebra kernels (ops/setops.py)
+are the native layout for the device set-algebra kernels (ops/setops.py)
 and make serialization deterministic (a superset of the reference's
 guarantee, whose Rust HashSet iteration order is arbitrary).
 

@@ -1,12 +1,11 @@
 """Deterministic on-device k-mer counting: sort + run-length encode.
 
-TPU-first replacement for the reference's concurrent hash map
-(DashMap<u64, AtomicUsize>, count.rs:23-38) and unique set
-(DashSet<u64>, build.rs:23-78).  Instead of a lock-based table, the batch
-of canonical k-mers is sorted with XLA's variadic sort (lexicographic on
-the (hi, lo) uint32 pair) and runs are collapsed with segment sums --
-fully deterministic, data-race-free by construction, and bandwidth-bound
-on the sort which is what TPUs are good at.
+Replaces the reference's concurrent hash map (DashMap<u64, AtomicUsize>,
+count.rs:23-38) and unique set (DashSet<u64>, build.rs:23-78).  Instead
+of a lock-based table, the batch of canonical k-mers is sorted with
+XLA's variadic sort (lexicographic on the (hi, lo) uint32 pair) and runs
+are collapsed with segment sums -- fully deterministic and data-race-free
+by construction.
 
 Invalid windows carry the SENTINEL pair which sorts to the end and is
 dropped by validity accounting.
@@ -21,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .kmers import SENTINEL
+from .merge import compact_left
 
 U32 = jnp.uint32
 
@@ -36,10 +36,8 @@ def _rle_sorted(shi, slo, n_valid):
     length n_valid.  Returns compacted unique pairs, their counts and the
     number of uniques; the tail of the output arrays is SENTINEL/0.
 
-    Entirely scatter-free (XLA scatters cost ~16 ms per 1M elements on
-    TPU): run totals are next-head-index differences via a reverse
-    cummin, and heads compact to the front with the monotone-shift
-    compactor (_compact_left).
+    Run totals are next-head-index differences via a reverse cummin, and
+    heads compact to the front (compact_left).
     """
     n = shi.shape[0]
     idx = jnp.arange(n, dtype=jnp.int32)
@@ -57,7 +55,7 @@ def _rle_sorted(shi, slo, n_valid):
     run_end = jnp.minimum(next_head_after, n_valid)
     cnt = jnp.where(is_head, run_end - idx, 0)
 
-    uhi, ulo, ucnt = _compact_left([shi, slo, cnt], is_head)
+    uhi, ulo, ucnt = compact_left([shi, slo, cnt], is_head)
     n_unique = is_head.astype(jnp.int32).sum()
     tail = idx >= n_unique
     uhi = jnp.where(tail, SENTINEL, uhi)
@@ -102,67 +100,23 @@ def count_packed(lanes: jnp.ndarray, invalid_words: jnp.ndarray, k: int):
     return count_kmers(hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
 
 
-# Per-chunk sort size inside sort_canonical_packed.  lax.sort's
-# per-element cost grows mildly with n (measured ms/1M on v5e: 2.42 at
-# 2^20, 2.90 at 2^22, 3.74 at 2^23), while every merge-tree level adds
-# ~0.35 ms/1M, so whole-batch sorts win up to ~2^22 and chunking pays
-# only beyond that.
-CHUNK_POSITIONS = 1 << 22
-
-
 @partial(jax.jit, static_argnames=("k",))
 def sort_canonical_packed(lanes: jnp.ndarray, invalid_words: jnp.ndarray, k: int):
     """Extract + globally sort the canonical k-mers of a packed batch.
 
     Returns (hi_sorted, lo_sorted, n_valid): a raw ascending weight-1
     stream with SENTINEL padding past n_valid.  No run-length encoding
-    happens here -- RLE's scatters cost ~6x the sort itself on TPU
-    (measured: 67 ms of scatters on a 4M batch vs ~10 ms extract+sort),
-    and deduplication never shrinks the fixed-capacity device arrays
-    anyway, so duplicates ride along until one rle_compact at flush.
-
-    Large batches are sorted as CHUNK_POSITIONS-sized lax.sorts under a
-    scan (n log n favors small sorts) and folded with the bitonic-merge
-    tree (ops/sort_pallas.py), all inside one device program.
+    happens here: deduplication never shrinks the fixed-capacity device
+    arrays, so duplicates ride along until one rle_compact at flush.
     """
     from .kmers_lanes import extract_canonical_lanes
-    from .sort_pallas import merge_sorted_streams
 
     n_positions = lanes.shape[0] * 16
     hi, lo, valid = extract_canonical_lanes(lanes, invalid_words, k, n_positions)
     hi, lo = _mask_to_sentinel(hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
     n_valid = valid.reshape(-1).astype(jnp.int32).sum()
-    if n_positions % CHUNK_POSITIONS != 0 or n_positions <= CHUNK_POSITIONS:
-        shi, slo = jax.lax.sort((hi, lo), num_keys=2)
-        return shi, slo, n_valid
-
-    n_chunks = n_positions // CHUNK_POSITIONS
-
-    def chunk_body(_, xs):
-        chi, clo = xs
-        return (), jax.lax.sort((chi, clo), num_keys=2)
-
-    _, (shi, slo) = jax.lax.scan(
-        chunk_body,
-        (),
-        (
-            hi.reshape(n_chunks, CHUNK_POSITIONS),
-            lo.reshape(n_chunks, CHUNK_POSITIONS),
-        ),
-    )
-    runs = [(shi[i], slo[i]) for i in range(n_chunks)]
-    while len(runs) > 1:
-        merged = [
-            merge_sorted_streams(a[0], a[1], b[0], b[1])
-            for a, b in zip(runs[0::2], runs[1::2])
-        ]
-        if len(runs) % 2:
-            # odd run count: carry the unpaired trailing run to the next
-            # level (zip truncates; dropping it would silently lose the
-            # whole last chunk whenever n_chunks is not a power of two)
-            merged.append(runs[-1])
-        runs = merged
-    return runs[0][0], runs[0][1], n_valid
+    shi, slo = jax.lax.sort((hi, lo), num_keys=2)
+    return shi, slo, n_valid
 
 
 def _rle_sorted_single(slo, n_valid):
@@ -183,7 +137,7 @@ def _rle_sorted_single(slo, n_valid):
     run_end = jnp.minimum(next_head_after, n_valid)
     cnt = jnp.where(is_head, run_end - idx, 0)
 
-    ulo, ucnt = _compact_left([slo, cnt], is_head)
+    ulo, ucnt = compact_left([slo, cnt], is_head)
     n_unique = is_head.astype(jnp.int32).sum()
     tail = idx >= n_unique
     ulo = jnp.where(tail, SENTINEL, ulo)
@@ -194,11 +148,10 @@ def _rle_sorted_single(slo, n_valid):
 @partial(jax.jit, static_argnames=("k",))
 def sort_canonical_packed_single(lanes: jnp.ndarray, invalid_words: jnp.ndarray, k: int):
     """2k <= 32 specialization of sort_canonical_packed: the canonical
-    k-mer fits one u32 plane, so the chunk sorts are 1-key and the merge
-    tree carries a single plane -- half the sort bandwidth (~45% of the
-    count pipeline at round 1).  Returns (lo_sorted, n_valid)."""
+    k-mer fits one u32 plane, so the sort is 1-key (XLA hands it to
+    CUB's radix sort) and every later stage carries a single plane.
+    Returns (lo_sorted, n_valid)."""
     from .kmers_lanes import extract_canonical_lanes
-    from .sort_pallas import merge_sorted_single
 
     assert 2 * k <= 32, k
     n_positions = lanes.shape[0] * 16
@@ -207,23 +160,7 @@ def sort_canonical_packed_single(lanes: jnp.ndarray, invalid_words: jnp.ndarray,
     valid = valid.reshape(-1)
     lo = jnp.where(valid, lo, SENTINEL)
     n_valid = valid.astype(jnp.int32).sum()
-    if n_positions % CHUNK_POSITIONS != 0 or n_positions <= CHUNK_POSITIONS:
-        (slo,) = jax.lax.sort((lo,), num_keys=1)
-        return slo, n_valid
-
-    n_chunks = n_positions // CHUNK_POSITIONS
-
-    def chunk_body(_, clo):
-        return (), jax.lax.sort((clo,), num_keys=1)[0]
-
-    _, slo = jax.lax.scan(chunk_body, (), lo.reshape(n_chunks, CHUNK_POSITIONS))
-    runs = [slo[i] for i in range(n_chunks)]
-    while len(runs) > 1:
-        merged = [merge_sorted_single(a, b) for a, b in zip(runs[0::2], runs[1::2])]
-        if len(runs) % 2:
-            merged.append(runs[-1])
-        runs = merged
-    return runs[0], n_valid
+    return jax.lax.sort(lo), n_valid
 
 
 @jax.jit
@@ -262,14 +199,13 @@ def widen_u48_np(t: np.ndarray, b: np.ndarray, k: int) -> np.ndarray:
 def sort_canonical_packed_u48(lanes: jnp.ndarray, invalid_words: jnp.ndarray, k: int):
     """32 < 2k <= 48 specialization of sort_canonical_packed (k=17..24,
     half the BASELINE.json north-star at k=21): keys are narrowed to a
-    (t u32, b u16) pair (narrow_u48), so the chunk lax.sorts move 6
+    (t u32, b u16) pair (narrow_u48), so the batch sort moves 6
     bytes/element instead of 8.  Returns (t_sorted, b_sorted u32,
     n_valid) -- the b plane is widened back to u32 on the way out so the
     merge forest / RLE / combine pipeline is shared with the pair path
     verbatim ((t, b) is lexicographically ordered exactly like the
     (hi, lo) it replaces)."""
     from .kmers_lanes import extract_canonical_lanes
-    from .sort_pallas import merge_sorted_streams
 
     assert 32 < 2 * k <= 48, k
     n_positions = lanes.shape[0] * 16
@@ -279,43 +215,8 @@ def sort_canonical_packed_u48(lanes: jnp.ndarray, invalid_words: jnp.ndarray, k:
     t = jnp.where(valid, t, SENTINEL)
     b16 = jnp.where(valid, b, 0xFFFF).astype(jnp.uint16)
     n_valid = valid.astype(jnp.int32).sum()
-    # (round 4: a tiled mixed-dtype whole-batch sort -- 6 B/element
-    # bitonic network, ops/sort_tiled.py -- was chip-validated
-    # plane-exact here but measured 0.58x lax.sort((u32,u16)) at 2^22:
-    # the O(n log^2 n) network loses more than the 25% byte cut buys.
-    # Deleted rather than kept as a dormant fork; numbers in BASELINE.md
-    # round-4 notes, harness tools/bench_sort.py, code in git history
-    # @b1b261f.  lax.sort pads the u16 operand to u32 internally, so
-    # the chunk sort still prices like (u32, u32) -- the narrowing win
-    # lives in the merge forest / RLE / host-link tiers instead.)
-    if n_positions % CHUNK_POSITIONS != 0 or n_positions <= CHUNK_POSITIONS:
-        st, sb = jax.lax.sort((t, b16), num_keys=2)
-        return st, _widen_b16(st, sb), n_valid
-
-    n_chunks = n_positions // CHUNK_POSITIONS
-
-    def chunk_body(_, xs):
-        ct, cb = xs
-        return (), jax.lax.sort((ct, cb), num_keys=2)
-
-    _, (st, sb) = jax.lax.scan(
-        chunk_body,
-        (),
-        (
-            t.reshape(n_chunks, CHUNK_POSITIONS),
-            b16.reshape(n_chunks, CHUNK_POSITIONS),
-        ),
-    )
-    runs = [(st[i], _widen_b16(st[i], sb[i])) for i in range(n_chunks)]
-    while len(runs) > 1:
-        merged = [
-            merge_sorted_streams(a[0], a[1], b_[0], b_[1])
-            for a, b_ in zip(runs[0::2], runs[1::2])
-        ]
-        if len(runs) % 2:
-            merged.append(runs[-1])
-        runs = merged
-    return runs[0][0], runs[0][1], n_valid
+    st, sb = jax.lax.sort((t, b16), num_keys=2)
+    return st, _widen_b16(st, sb), n_valid
 
 
 def _widen_b16(st, sb):
@@ -327,69 +228,19 @@ def _widen_b16(st, sb):
     return jnp.where(st == SENTINEL, SENTINEL, sb.astype(U32))
 
 
-def _compact_left(planes, keep: jnp.ndarray, radix_bits: int = 1):
-    # radix 1 measured fastest on TPU v5e (114.7/130.8/168.6 ms at 32M x3
-    # planes for radix 1/2/3): passes are HBM-bound and the wider-radix
-    # where-cascade adds read streams faster than it removes passes.
-    """Stable compaction of kept elements to the front, scatter-free.
-
-    Each kept element's destination is its rank, i.e. it moves LEFT by
-    s_i = (#dropped before i) -- a monotone shift with distinct
-    destinations, which decomposes into ceil(log2(n)/r) conditional
-    fixed-offset shift passes processed from the LOW radix-digit up
-    (collision-free; validated against a numpy oracle for r in 1..4).
-    Every pass is elementwise + static shifts: no scatters, no gathers.
-    Tail slots past the kept count hold leftovers the caller must mask.
-    """
-    from .sort_pallas import compact_left_pallas, use_compact_pallas
-
-    n = keep.shape[0]
-    if use_compact_pallas(n):
-        return compact_left_pallas(planes, keep)
-    drop = (~keep).astype(jnp.int32)
-    s = jnp.cumsum(drop) - drop  # dropped strictly before i
-    b = 0
-    radix = 1 << radix_bits
-    while (1 << b) < n:
-        step = 1 << b
-        digit = (s >> b) & (radix - 1)
-        new_planes = list(planes)
-        new_s = s
-        for d in range(1, radix):
-            move = d * step
-            if move >= n:
-                break
-            recv = jnp.concatenate(
-                [digit[move:] == d, jnp.zeros(move, jnp.bool_)]
-            )
-            new_planes = [
-                jnp.where(recv, jnp.concatenate([p[move:], p[:move]]), q)
-                for p, q in zip(planes, new_planes)
-            ]
-            new_s = jnp.where(
-                recv, jnp.concatenate([s[move:] - move, s[:move]]), new_s
-            )
-        planes = new_planes
-        s = new_s
-        b += radix_bits
-    return planes
-
-
 @jax.jit
 def rle_compact(shi: jnp.ndarray, slo: jnp.ndarray, n_valid):
-    """Run-length encode a sorted stream (scatter-free; see _rle_sorted).
+    """Run-length encode a sorted stream (see _rle_sorted).
 
-    Measured ~6x faster than a keyed re-sort and ~10x faster than XLA
-    scatters at 64M elements.  Returns (uhi, ulo, counts, n_unique),
-    sorted ascending with SENTINEL/0 padding past n_unique.
+    Returns (uhi, ulo, counts, n_unique), sorted ascending with
+    SENTINEL/0 padding past n_unique.
     """
     return _rle_sorted(shi, slo, n_valid)
 
 
 @partial(jax.jit, static_argnames=("k",))
 def count_packed_multi(lanes: jnp.ndarray, invalid_words: jnp.ndarray, k: int):
-    """Single-dispatch exact count of a packed batch: chunked sort +
-    bitonic merge tree + scatter-free RLE.  Returns (uhi, ulo, counts,
+    """Single-dispatch exact count of a packed batch: sort + RLE.  Returns (uhi, ulo, counts,
     n_unique) with capacity = #positions."""
     shi, slo, n_valid = sort_canonical_packed(lanes, invalid_words, k)
     return rle_compact(shi, slo, n_valid)
@@ -426,7 +277,7 @@ def _combine_merged_unique(planes, n_valid, n_keys: int):
     new_hi = cnt_hi + add_hi + carry
     prev_eq = jnp.concatenate([jnp.zeros((1,), jnp.bool_), eq_next[:-1]])
     keep = in_prefix & ~prev_eq  # run heads only (runs have length <= 2)
-    out = _compact_left([*keys, new_lo, new_hi], keep)
+    out = compact_left([*keys, new_lo, new_hi], keep)
     n_unique = keep.astype(jnp.int32).sum()
     tail = idx >= n_unique
     out_keys = [jnp.where(tail, SENTINEL, k) for k in out[:n_keys]]
@@ -449,7 +300,7 @@ def combine_sorted_unique(a_hi, a_lo, a_clo, a_chi, a_n, b_hi, b_lo, b_clo, b_ch
     work (classify.rs has no analog; count.rs:106-135 accumulates in the
     host HashMap).
     """
-    from .sort_pallas import merge_sorted_planes
+    from .merge import merge_sorted_planes
 
     merged = merge_sorted_planes(
         [a_hi, a_lo, a_clo, a_chi], [b_hi, b_lo, b_clo, b_chi]
@@ -460,7 +311,7 @@ def combine_sorted_unique(a_hi, a_lo, a_clo, a_chi, a_n, b_hi, b_lo, b_clo, b_ch
 @jax.jit
 def combine_sorted_unique_single(a_lo, a_clo, a_chi, a_n, b_lo, b_clo, b_chi, b_n):
     """Single-plane (2k <= 32) variant of combine_sorted_unique."""
-    from .sort_pallas import merge_sorted_planes
+    from .merge import merge_sorted_planes
 
     merged = merge_sorted_planes(
         [a_lo, a_clo, a_chi], [b_lo, b_clo, b_chi], n_keys=1
@@ -476,8 +327,7 @@ def hits_per_read(member: jnp.ndarray, owner: jnp.ndarray, num_reads: int):
     ``owner`` must be sorted ascending (read regions are contiguous in
     position order -- true for every packed-batch layout here), so the
     per-read sums are prefix-sum differences at the owner boundaries:
-    scatter-free (an .at[owner].add scatter costs ~9 ms per 1M windows
-    on TPU; this is two cheap num_reads-sized gathers)."""
+    two num_reads-sized gathers."""
     prefix = jnp.concatenate(
         [jnp.zeros((1,), jnp.int32), jnp.cumsum(member.astype(jnp.int32))]
     )

@@ -1,9 +1,8 @@
 """64-bit hashing on (hi, lo) uint32 pairs.
 
-TPUs have no native 64-bit integer lanes, so 64-bit arithmetic (add,
-mul, xor-shift) is emulated with 32-bit limb operations -- the same
-decomposition XLA itself uses, written explicitly so we control the op
-count.  Provides:
+JAX runs with 32-bit integers (x64 off), so 64-bit arithmetic (add,
+mul, xor-shift) is done with 32-bit limb operations, written explicitly
+so we control the op count.  Provides:
 
   * mix32_pair:       fast 32-bit finalizer for hash-range sharding
   * splitmix64_pair:  full-quality 64-bit finalizer (splitmix64), used

@@ -1,12 +1,12 @@
-"""Device k-mer extraction + canonicalization (JAX/XLA, TPU-first).
+"""Device k-mer extraction + canonicalization (JAX/XLA).
 
 Design notes (this is NOT a port of the reference's per-window re-encode
 loop, count.rs:28-37, which is O(len*k) scalar work):
 
-  * TPUs have no native 64-bit integers, so a k-mer (k <= 32, 2 bits per
-    base) is represented as a pair of uint32 words ``(hi, lo)`` holding
-    the MSB-first packed value ``hi * 2**32 + lo``.  All kernels operate
-    on 32-bit vector lanes, which is what the VPU natively executes.
+  * JAX runs with 32-bit integers (x64 off), so a k-mer (k <= 32, 2 bits
+    per base) is represented as a pair of uint32 words ``(hi, lo)``
+    holding the MSB-first packed value ``hi * 2**32 + lo``.  All kernels
+    operate on 32-bit lanes.
 
   * Packing is done with a logarithmic doubling scheme: arrays of packed
     2**m-base words are combined pairwise, so a full batch of N windows

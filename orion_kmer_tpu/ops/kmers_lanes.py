@@ -15,8 +15,7 @@ arithmetic on u32 lanes -- about 2 VPU ops per base.  Outputs are in
 [p % 16, p // 16]; counting is order-independent so no transpose is
 needed on the hot path.
 
-This is both a fast XLA path and the exact computation the Pallas kernel
-(ops/kmers_pallas.py) runs per VMEM tile.
+XLA fuses the whole chain into the consumer of the outputs.
 """
 
 from __future__ import annotations
@@ -44,7 +43,7 @@ def lane_masks_from_invalid_words(invalid_words: jnp.ndarray):
 
 
 def extract_canonical_lane_math(A, B, C, MA, MB, MC, k: int, n_lanes_valid):
-    """Core per-lane math, shared by the XLA path and the Pallas kernel.
+    """Core per-lane math of extract_canonical_lanes.
 
     A/B/C: lanes w, w+1, w+2 (u32, 16 bases each, LSB-first)
     MA/MB/MC: 16-bit invalid masks for the same lanes (u32)
@@ -90,10 +89,8 @@ def extract_canonical_lane_math(A, B, C, MA, MB, MC, k: int, n_lanes_valid):
     lo = jnp.stack(outs_lo)
     valid = jnp.stack(outs_valid)
     # windows starting at lane >= n_lanes_valid read wrapped/garbage lanes
-    # (None = caller applies its own position bound, e.g. the Pallas path)
-    if n_lanes_valid is not None:
-        lane_idx = jax.lax.broadcasted_iota(jnp.int32, valid.shape, valid.ndim - 1)
-        valid = valid & (lane_idx < n_lanes_valid)
+    lane_idx = jax.lax.broadcasted_iota(jnp.int32, valid.shape, valid.ndim - 1)
+    valid = valid & (lane_idx < n_lanes_valid)
     return hi, lo, valid
 
 

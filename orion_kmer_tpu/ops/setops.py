@@ -1,21 +1,19 @@
 """On-device exact set algebra over (hi, lo)-encoded k-mer sets.
 
 The reference uses std HashSet probes for membership (query.rs:90,
-classify.rs:230-236) and intersection counting (compare.rs:58).  The
-TPU-native equivalent is a sort-merge join: the query stream is sorted
-by (hi, lo) -- or arrives already sorted -- and then MERGED with the
-db set, which is always sorted, via the bitonic-merge network
-(ops/sort_pallas.py): merging costs the log2(n) stages of a merge
-instead of re-sorting the static db every batch.
+classify.rs:230-236) and intersection counting (compare.rs:58).  Here
+they are sort-merge joins: the query stream is sorted by (hi, lo) -- or
+arrives already sorted -- and then MERGED with the db set, which is
+always sorted (ops/merge.py), instead of re-sorting the static db every
+batch.
 
 Run-membership detection tolerates the merge's unstable within-run
 order: a query row is a member iff a db row exists anywhere in its run,
 checked with a forward cummax (last db position >= my run head) OR'd
-with a backward cummin (next db position <= my run end).  Everything is
-scatter/gather-free (XLA scatters and gathers cost ~16 / ~15 ms per 1M
-elements on TPU); query-order restoration is one single-key sort of a
-(position << 1 | member) packed key, or a monotone compaction when the
-queries are sorted unique (the classify case).
+with a backward cummin (next db position <= my run end).  Query-order
+restoration is one single-key sort of a (position << 1 | member) packed
+key, or a compaction when the queries are sorted unique (the classify
+case).
 
 Validity is threaded through the join: a SENTINEL-masked invalid query
 must never match even a genuine k-mer whose encoding equals SENTINEL
@@ -45,7 +43,7 @@ def _member_merged(q_planes, d_planes):
     Returns (member, sflag, sextras) in merged order, sized
     len(q) + len(d).
     """
-    from .sort_pallas import merge_sorted_planes
+    from .merge import merge_sorted_planes
 
     merged = merge_sorted_planes(d_planes, q_planes)
     shi, slo, sflag = merged[:3]
@@ -147,9 +145,9 @@ def membership_sorted(q_hi, q_lo, q_valid, db_hi, db_lo, db_valid):
 
     Returns bool[Nq] aligned with the query order.  The queries are
     already sorted, so the join is a pure merge and order restoration is
-    one monotone compaction.
+    one compaction.
     """
-    from .count import _compact_left
+    from .merge import compact_left
 
     nq = q_hi.shape[0]
     nd = db_hi.shape[0]
@@ -169,7 +167,7 @@ def membership_sorted(q_hi, q_lo, q_valid, db_hi, db_lo, db_valid):
     member, _, (sreal,) = _member_merged(q_planes, d_planes)
     # real queries appear in value order == their input order (sorted
     # unique input with a valid prefix; sentinel-masked tails sort last)
-    (cmember,) = _compact_left([member.astype(U32)], sreal == 1)
+    (cmember,) = compact_left([member.astype(U32)], sreal == 1)
     return (cmember[:nq] == 1) & q_valid
 
 
@@ -197,7 +195,7 @@ def classify_join(q_hi, q_lo, q_valid, db_hi, db_lo, db_valid):
 
     Returns (member_q u32[Nq/32], member_db u32[Nd/32]), little-endian
     bit-packed (Nq, Nd must be multiples of 32) -- 8x less host link
-    traffic than bool arrays on tunneled hosts.
+    traffic than bool arrays.
     """
     nq = q_hi.shape[0]
     nd = db_hi.shape[0]
@@ -223,7 +221,7 @@ def classify_join(q_hi, q_lo, q_valid, db_hi, db_lo, db_valid):
         U32(nq) + jnp.arange(nd, dtype=U32),  # restore pos past queries
         jnp.zeros((nd,), U32),
     ]
-    from .sort_pallas import merge_sorted_planes
+    from .merge import merge_sorted_planes
 
     shi, slo, sflag, spos, sqreal = merge_sorted_planes(d_planes, q_planes)
     n = shi.shape[0]
@@ -259,13 +257,12 @@ def intersection_size(a_hi, a_lo, a_valid, b_hi, b_lo, b_valid):
     valid slots with invalid slots only in a trailing pad -- true for
     every caller (DB dumps and count tables are sorted-unique;
     engine.intersection_size_host pads tails).  Both operands being
-    sorted, the join is ONE bitonic merge of the sides instead of a
-    2-key lax.sort of the concatenation (a sort costs ~8x a merge at
-    2^27 elements; compare at large DB scale paid the difference).
-    Each value occurs at most once per side, so a value is shared iff
-    an adjacent merged pair has side markers {A, B}.
+    sorted, the join is ONE merge of the sides instead of a 2-key
+    lax.sort of the concatenation.  Each value occurs at most once per
+    side, so a value is shared iff an adjacent merged pair has side
+    markers {A, B}.
     """
-    from .sort_pallas import merge_sorted_planes
+    from .merge import merge_sorted_planes
 
     ah = jnp.where(a_valid, a_hi, SENTINEL)
     al = jnp.where(a_valid, a_lo, SENTINEL)

@@ -56,8 +56,7 @@ def _sketch_from_hashes(hhi, hlo, valid, scaled: int, dense: bool = False):
 
     For scaled >> 1 only ~n/scaled hashes survive the threshold, so
     sorting the full stream wastes ~scaled x the work: the sparse path
-    compacts survivors first (scatter-free monotone-shift compaction),
-    then sorts just the small survivor buffer.  Survivors can exceed the
+    compacts survivors first, then sorts just the small survivor buffer.  Survivors can exceed the
     8x-headroom capacity when duplicate k-mers share a hash (a
     low-complexity repeat with multiplicity > 8n/scaled survives with
     probability ~1/scaled): the returned ``overflow`` flag is nonzero in
@@ -65,7 +64,8 @@ def _sketch_from_hashes(hhi, hlo, valid, scaled: int, dense: bool = False):
     exact dense path (``dense=True``), mirroring the a2a overflow-retry
     pattern.  Returns (uhi, ulo, counts, n_unique, overflow).
     """
-    from .count import SENTINEL, _compact_left, _rle_sorted
+    from .count import SENTINEL, _rle_sorted
+    from .merge import compact_left
 
     keep = _keep_mask(hhi, hlo, valid, scaled)
     n = hhi.shape[0]
@@ -76,7 +76,7 @@ def _sketch_from_hashes(hhi, hlo, valid, scaled: int, dense: bool = False):
     overflow = (n_kept > cap).astype(jnp.int32)
     mhi = jnp.where(keep, hhi, SENTINEL)
     mlo = jnp.where(keep, hlo, SENTINEL)
-    chi, clo = _compact_left([mhi, mlo], keep)
+    chi, clo = compact_left([mhi, mlo], keep)
     idx = jnp.arange(n, dtype=jnp.int32)
     # leftover tail slots may hold stale copies of kept values: sentinel
     # them before the sort so they cannot contaminate the prefix
@@ -103,22 +103,11 @@ def sketch_batch(codes, invalid, k: int, scaled: int, dense: bool = False):
 @partial(jax.jit, static_argnames=("k", "scaled", "dense"))
 def sketch_packed(lanes, invalid_words, k: int, scaled: int, dense: bool = False):
     """sketch_batch over the packed wire format (3.2x less transfer,
-    lane-parallel extraction).
-
-    On TPU the Pallas extraction kernel feeds the threshold+compaction
-    chain (measured 1.05 -> 1.22 Gbp/s at scaled=1000; unlike the count
-    path there is no downstream sort for XLA to fuse extraction into).
-    """
+    lane-parallel extraction)."""
     from .kmers_lanes import extract_canonical_lanes
-    from .kmers_pallas import extract_canonical_lanes_pallas
 
-    extractor = (
-        extract_canonical_lanes_pallas
-        if jax.default_backend() == "tpu"
-        else extract_canonical_lanes
-    )
     n_positions = lanes.shape[0] * 16
-    hi, lo, valid = extractor(lanes, invalid_words, k, n_positions)
+    hi, lo, valid = extract_canonical_lanes(lanes, invalid_words, k, n_positions)
     hhi, hlo = splitmix64_pair(hi.reshape(-1), lo.reshape(-1))
     return _sketch_from_hashes(hhi, hlo, valid.reshape(-1), scaled, dense=dense)
 

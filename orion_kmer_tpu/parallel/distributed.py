@@ -3,7 +3,7 @@
 The reference is strictly single-host (SURVEY.md 2.3); scaling past one
 host here means a JAX distributed runtime: each host process calls
 jax.distributed.initialize() and the (shard,) mesh spans every chip in
-the slice, with the all_to_all hash routing riding ICI within a slice
+the slice, with the all_to_all hash routing riding the device interconnect within a host
 and DCN across hosts.  This helper wires the standard environment
 contract (coordinator address / process count / process id) and is a
 no-op on a single host.
@@ -33,7 +33,7 @@ def multihost_sharded_count(codes, invalid, k: int, capacity_factor: float = 2.0
     jax.make_array_from_callback, the per-device step owner-routes
     extracted k-mers with the capacity-bounded all_to_all
     (sharded.route_to_owners -- the SAME route the production
-    ShardedCountTable uses, riding ICI within a host and DCN across
+    ShardedCountTable uses, riding the device interconnect (NVLink) within a host and DCN across
     hosts), and only the small per-owner RLE RESULTS are
     all_gather-replicated so every process can read them without
     cross-host fetches.  Capacity overflow (psum-detected) retries with

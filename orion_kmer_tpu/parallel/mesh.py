@@ -1,7 +1,7 @@
 """Device mesh construction.
 
 The reference is single-host, shared-memory only (rayon threads,
-utils.rs:28-33; SURVEY.md section 2.3).  The TPU-native replacement is a
+utils.rs:28-33; SURVEY.md section 2.3).  The replacement here is a
 jax.sharding.Mesh: one ``shard`` axis that serves simultaneously as the
 data axis (read batches are position-sharded across it) and the table
 axis (the 64-bit canonical-k-mer space is hash-range-partitioned across

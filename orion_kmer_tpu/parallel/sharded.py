@@ -1,6 +1,6 @@
 """Hash-range-sharded multi-chip k-mer counting (shard_map + collectives).
 
-Step layout (SURVEY.md section 2.3, "TPU-native equivalent" column):
+Step layout (SURVEY.md section 2.3, "equivalent" column):
 
   1. the packed position stream is sharded over the ``shard`` mesh axis
      (data parallelism: each chip extracts canonical k-mers from its
@@ -13,7 +13,7 @@ Step layout (SURVEY.md section 2.3, "TPU-native equivalent" column):
      needed; scalar stats merge with psum
 
 Routing is capacity-bounded all_to_all by default (route_to_owners:
-each chip sends only the owner's share over ICI, S times less traffic
+each chip sends only the owner's share over the interconnect, S times less traffic
 than replication), with exactness preserved by an overflow flag +
 doubled-capacity retry; the all_gather replication step remains as the
 overflow-proof fallback.  The same route serves the cross-process
@@ -79,7 +79,7 @@ def make_sharded_count_step(mesh: Mesh, k: int):
         mesh=mesh,
         in_specs=(P("shard"), P("shard")),
         out_specs=(P("shard", None), P("shard", None), P("shard", None), P("shard")),
-        check_vma=False,  # Pallas merge kernels have no vma info
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -89,7 +89,7 @@ def route_to_owners(hi, lo, valid, n_shards: int, cap: int, axis_name: str = "sh
     capacity-bounded all_to_all (the hash-range a2a route).
 
     Each chip sorts its k-mers by owner shard and sends only the owner's
-    share over ICI -- S times less traffic than all_gather replication.
+    share over the interconnect -- S times less traffic than all_gather replication.
     Per (src, dst) capacity is ``cap``; the returned overflow flag is
     psum-reduced over shards so callers can retry with a larger capacity,
     preserving exactness.  Uniform mix32 hashing makes overflow at
@@ -100,9 +100,8 @@ def route_to_owners(hi, lo, valid, n_shards: int, cap: int, axis_name: str = "sh
     ``axis_name``.  Shared by the single-process sharded step and the
     cross-process multihost step (parallel.distributed).
     """
-    from ..ops.count import _compact_left
     from ..ops.kmers import SENTINEL
-    from ..ops.sort_pallas import merge_sorted_pairs
+    from ..ops.merge import compact_left, merge_sorted_pairs
 
     b = hi.shape[0]
     hi = jnp.where(valid, hi, SENTINEL)
@@ -117,10 +116,10 @@ def route_to_owners(hi, lo, valid, n_shards: int, cap: int, axis_name: str = "sh
     counts = ends - starts
     overflow = (counts > cap).any().astype(jnp.int32)
 
-    # route each entry to slot owner*cap + rank_within_owner,
-    # scatter-free: entry dest slots are strictly increasing (owner
-    # asc, rank asc), and the unfilled slots are a sorted set, so the
-    # send buffer is a bitonic MERGE of (dest_slot, hi, lo) with
+    # route each entry to slot owner*cap + rank_within_owner: entry
+    # dest slots are strictly increasing (owner asc, rank asc), and the
+    # unfilled slots are a sorted set, so the send buffer is a MERGE of
+    # (dest_slot, hi, lo) with
     # (unfilled_slot, SENTINEL, SENTINEL) -- the slot keys form a
     # permutation of 0..M-1, making merged[t] the slot-t payload.
     M = n_shards * cap
@@ -131,7 +130,7 @@ def route_to_owners(hi, lo, valid, n_shards: int, cap: int, axis_name: str = "sh
     dest_slot = jnp.where(routed, sowner * U32(cap) + rank.astype(U32), big)
     slot_t = jnp.arange(M, dtype=jnp.int32)
     unfilled = (slot_t % cap) >= jnp.repeat(counts, cap, total_repeat_length=M)
-    (ukeys,) = _compact_left([slot_t.astype(U32)], unfilled)
+    (ukeys,) = compact_left([slot_t.astype(U32)], unfilled)
     n_unfilled = unfilled.astype(jnp.int32).sum()
     ukeys = jnp.where(slot_t < n_unfilled, ukeys, big)
     mkey, mhi, mlo = merge_sorted_pairs(
@@ -188,7 +187,7 @@ def make_sharded_count_step_a2a(mesh: Mesh, k: int, capacity_factor: float = 2.0
             P("shard"),
             P("shard"),
         ),
-        check_vma=False,  # Pallas merge kernels have no vma info
+        check_vma=False,
     )
     return jax.jit(fn)
 
@@ -242,7 +241,7 @@ def sharded_count(
 
     Exactness: block halos ensure each window is produced once; hash
     ownership ensures each distinct k-mer is counted by exactly one
-    shard.  Prefers the all_to_all routing (S times less ICI traffic);
+    shard.  Prefers the all_to_all routing (S times less interconnect traffic);
     on capacity overflow retries with doubled capacity, then falls back
     to the replication path.  Returns (vals uint64, counts int64) sorted.
     """

@@ -1,21 +1,21 @@
 """Persistent XLA compilation cache.
 
-Compiles on this class of TPU deployment can take tens of seconds per
-(program, shape); the persistent cache turns every repeat invocation of
-the CLI / bench / engine into a sub-second load.  Enabled from every
-entry point; opt out with ORION_KMER_JAX_CACHE=0.
+Every CLI / bench / engine process compiles the same programs; the
+persistent cache lets a repeat invocation load them instead.  Where
+JAX_COMPILATION_CACHE_DIR is set, JAX itself uses that directory and
+nothing is set here; otherwise the cache lives in a fixed directory of
+the checkout (CACHE_DIR, git-ignored).
 """
 
 from __future__ import annotations
 
 import logging
 import os
+from pathlib import Path
 
 logger = logging.getLogger("orion_kmer_tpu.jaxcache")
 
-_DEFAULT_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "orion_kmer_tpu", "jax"
-)
+CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
 _enabled = False
 
 
@@ -23,33 +23,14 @@ def enable_persistent_cache() -> None:
     global _enabled
     if _enabled:
         return
-    setting = os.environ.get("ORION_KMER_JAX_CACHE", _DEFAULT_DIR)
-    if setting == "0":
-        _enabled = True
+    _enabled = True
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
     try:
         import jax
 
-        # scope by host-CPU fingerprint: XLA:CPU AOT executables embed
-        # the compile machine's feature set, and a shared cache dir
-        # across heterogeneous hosts loads them with a SIGILL risk
-        # ("Machine type used for XLA:CPU compilation doesn't match")
-        try:
-            import hashlib
-
-            with open("/proc/cpuinfo") as f:
-                flags = next(
-                    (ln for ln in f if ln.startswith("flags")), "unknown"
-                )
-            setting = os.path.join(
-                setting, hashlib.sha256(flags.encode()).hexdigest()[:8]
-            )
-        except OSError:
-            pass
-        os.makedirs(setting, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", setting)
+        CACHE_DIR.mkdir(exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", str(CACHE_DIR))
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        _enabled = True
     except Exception as e:  # noqa: BLE001 - cache is best-effort
         logger.debug("persistent compilation cache unavailable: %s", e)
-        _enabled = True

@@ -220,22 +220,38 @@ def test_count_accumulator_pairwise_merge_matches_bruteforce():
     np.testing.assert_array_equal(counts, exp_c)
 
 
-def test_device_count_table_warm_smoke():
-    """warm() must trace+run every chain depth and flush cap without
-    affecting subsequent results (dummy inputs carry n_valid = 0)."""
+@pytest.mark.parametrize("k", [7, 21, 31])
+def test_device_count_table_repeated_flushes_fold_exactly(monkeypatch, k):
+    """Several flush epochs fold into the device table through
+    combine_sorted_unique (the first flush only seeds it), for each key
+    class; the result stays oracle-exact."""
+    from orion_kmer_tpu import codec
     from orion_kmer_tpu.engine import DeviceCountTable
 
-    for k in (7, 31):  # single-plane and pair representations
-        t = DeviceCountTable(k)
-        t.warm(size=4096, max_depth=2)
-        codes = np.frombuffer(b"\x00\x01\x02\x03" * 64, dtype=np.uint8).copy()
+    monkeypatch.setattr(DeviceCountTable, "FLUSH_WINDOWS", 2000)
+    rng = np.random.default_rng(100 + k)
+    t = DeviceCountTable(k)
+    batches = []
+    for _ in range(5):
+        codes = rng.integers(0, 4, size=1500, dtype=np.uint8)
+        codes[rng.random(1500) < 0.02] = 255
+        batches.append(codes)
         t.update(codes)
-        vals, counts = t.result()
-        from orion_kmer_tpu import codec
-
-        ev, ec = np.unique(codec.extract_kmers_np(codes, k), return_counts=True)
-        np.testing.assert_array_equal(vals, ev)
-        np.testing.assert_array_equal(counts, ec)
+    folds = []
+    orig = DeviceCountTable._fold_into_table
+    monkeypatch.setattr(
+        DeviceCountTable, "_fold_into_table",
+        lambda self, *a: (folds.append(self._table is not None), orig(self, *a))[1],
+    )
+    t.update(batches[0])
+    t.flush()
+    vals, counts = t.result()
+    assert True in folds  # at least one fold merged into an existing table
+    sep = np.full(k - 1, 255, np.uint8)
+    allc = np.concatenate([x for b in [*batches, batches[0]] for x in (b, sep)])
+    ev, ec = np.unique(codec.extract_kmers_np(allc, k), return_counts=True)
+    np.testing.assert_array_equal(vals, ev)
+    np.testing.assert_array_equal(counts, ec)
 
 
 def test_count_accumulator_consolidation_bounds_runs():
@@ -441,7 +457,7 @@ def test_sharded_spill_carries_nonzero_chi():
     S = 0xFFFFFFFF
     t = object.__new__(ShardedCountTable)
     t._single = False
-    t._route_u48 = False
+    t._u48 = False
     t.n_shards = 2
     t._acc = CountAccumulator()
     t.stats = {"spills": 0, "host_link_bytes": 0}

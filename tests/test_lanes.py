@@ -1,4 +1,4 @@
-"""Lane-parallel extraction (XLA + Pallas) vs the host oracle."""
+"""Lane-parallel extraction vs the host oracle."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -7,7 +7,6 @@ import pytest
 from orion_kmer_tpu import codec
 from orion_kmer_tpu.engine import pack_for_transfer
 from orion_kmer_tpu.ops.kmers_lanes import extract_canonical_lanes
-from orion_kmer_tpu.ops.kmers_pallas import extract_canonical_lanes_pallas
 
 
 def _flat(hi, lo, valid, n):
@@ -31,22 +30,6 @@ def test_lanes_extraction_matches_oracle(k):
     lanes, inv = pack_for_transfer(codes, 4096)
     hi, lo, valid = extract_canonical_lanes(jnp.asarray(lanes), jnp.asarray(inv), k, n)
     np.testing.assert_array_equal(_flat(hi, lo, valid, n), ref)
-
-
-@pytest.mark.parametrize("k", [3, 16, 21, 31])
-def test_pallas_kernel_matches_xla(k):
-    rng = np.random.default_rng(100 + k)
-    n = 6000
-    seq = rng.choice(list(b"ACGTN"), size=n).astype(np.uint8).tobytes()
-    codes = codec.seq_to_codes(seq)
-    lanes, inv = pack_for_transfer(codes, 8192)
-    args = (jnp.asarray(lanes), jnp.asarray(inv), k, n)
-    r_xla = extract_canonical_lanes(*args)
-    r_pal = extract_canonical_lanes_pallas(*args)
-    v1, v2 = np.asarray(r_xla[2]), np.asarray(r_pal[2])
-    np.testing.assert_array_equal(v1, v2)
-    for a, b in zip(r_xla[:2], r_pal[:2]):
-        np.testing.assert_array_equal(np.asarray(a)[v1], np.asarray(b)[v1])
 
 
 def test_exact_boundary_no_padding():

@@ -166,13 +166,12 @@ def test_hits_per_read():
 
 
 def test_count_packed_multi_matches_count_packed(monkeypatch):
-    """The chunked+merge-tree single-dispatch counter must agree exactly
-    with the plain per-batch counter (and hence with the numpy oracle)."""
+    """The single-dispatch sort+RLE counter must agree exactly with the
+    plain per-batch counter (and hence with the numpy oracle)."""
     from orion_kmer_tpu.engine import pack_for_transfer
 
-    monkeypatch.setattr(ops_count, "CHUNK_POSITIONS", 1 << 14)
     rng = np.random.default_rng(5)
-    n = 1 << 16  # 4 chunks
+    n = 1 << 16
     codes = rng.integers(0, 4, size=n, dtype=np.uint8)
     codes[rng.random(n) < 0.01] = 255
     lanes, inv = pack_for_transfer(codes, n)
@@ -232,8 +231,8 @@ def test_membership_sorted_matches_membership():
 
 
 def test_membership_pow2_total_merge_path():
-    """nq + nd a power of two engages the Pallas bitonic-merge join
-    (interpret mode off-TPU); results must match the numpy oracle."""
+    """nq + nd a power of two (no ragged merge block); results must
+    match the numpy oracle."""
     rng = np.random.default_rng(88)
     qs = ds = 1 << 13  # total 2^14: merge path active
     nq, nd = 7000, 6000
@@ -255,14 +254,13 @@ def test_membership_pow2_total_merge_path():
 
 
 def test_merge_tree_odd_chunk_count(monkeypatch):
-    """Regression (ADVICE round 1): the merge tree dropped the unpaired
-    trailing run whenever the run count at a level was odd, silently
-    losing a third of the k-mers at n_chunks=3."""
+    """A batch whose size is not a power of two (3 x 2^10 positions)
+    sorts every k-mer (an earlier chunked sort once dropped a third of
+    them here)."""
     from orion_kmer_tpu.engine import pack_for_transfer
 
-    monkeypatch.setattr(ops_count, "CHUNK_POSITIONS", 1 << 10)
     rng = np.random.default_rng(7)
-    n = 3 << 10  # 3 chunks: odd at the first merge level
+    n = 3 << 10
     codes = rng.integers(0, 4, size=n, dtype=np.uint8)
     codes[rng.random(n) < 0.01] = 255
     lanes, inv = pack_for_transfer(codes, n)
@@ -382,9 +380,8 @@ class TestSinglePlanePath:
     def test_matches_general_path(self, k, monkeypatch):
         from orion_kmer_tpu.engine import pack_for_transfer
 
-        monkeypatch.setattr(ops_count, "CHUNK_POSITIONS", 1 << 12)
         rng = np.random.default_rng(40 + k)
-        n = 1 << 14  # 4 chunks through the merge tree
+        n = 1 << 14
         codes = rng.integers(0, 4, size=n, dtype=np.uint8)
         codes[rng.random(n) < 0.01] = 255
         lanes, inv = pack_for_transfer(codes, n)
@@ -444,16 +441,15 @@ class TestSinglePlanePath:
 class TestU48Path:
     """32 < 2k <= 48 specialization (VERDICT round 2 #1, k=21 is half
     the BASELINE.json north-star): keys narrowed to (t u32, b u16) for
-    the chunk sorts must agree bit-exactly with the (hi, lo) pair path
+    the batch sort must agree bit-exactly with the (hi, lo) pair path
     and the host oracle, after widening (t, b) back to u64."""
 
     @pytest.mark.parametrize("k", [17, 21, 24])
     def test_matches_general_path(self, k, monkeypatch):
         from orion_kmer_tpu.engine import pack_for_transfer
 
-        monkeypatch.setattr(ops_count, "CHUNK_POSITIONS", 1 << 12)
         rng = np.random.default_rng(50 + k)
-        n = 1 << 14  # 4 chunks through the merge tree
+        n = 1 << 14
         codes = rng.integers(0, 4, size=n, dtype=np.uint8)
         codes[rng.random(n) < 0.01] = 255
         lanes, inv = pack_for_transfer(codes, n)

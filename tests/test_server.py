@@ -132,38 +132,3 @@ def test_extract_server_flag():
     )
     assert _extract_server_flag(["--server=/s", "--version"]) == ("/s", ["--version"])
     assert _extract_server_flag(["count", "-k", "5"]) == (None, ["count", "-k", "5"])
-
-
-def test_serve_warm_ks_plumbing(tmp_path, monkeypatch):
-    """--warm-k reaches DeviceCountTable.warm once per k (the real ladder
-    is sized for the device forest — far too large to execute on the CPU
-    test backend, so record the call instead).  Warm-up is TPU-gated in
-    serve() (on CPU the full-depth chain is pathologically expensive to
-    compile and amortizes nothing), so fake the backend too."""
-    import jax
-
-    from orion_kmer_tpu import engine
-
-    warmed = []
-    monkeypatch.setattr(
-        engine.DeviceCountTable, "warm", lambda self, *a, **kw: warmed.append(self.k)
-    )
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    # the faked tpu backend would otherwise pick the 8-device sharded
-    # table (no single-chip warm ladder) on the CPU test mesh
-    monkeypatch.setenv("ORION_KMER_SHARDS", "0")
-    sock = tmp_path / "warm.sock"
-    ready = threading.Event()
-    t = threading.Thread(
-        target=srv.serve,
-        args=(sock,),
-        kwargs={"on_ready": ready.set, "warm_ks": (5, 21)},
-        daemon=True,
-    )
-    t.start()
-    assert ready.wait(120), "warm serve did not come up"
-    assert warmed == [5, 21]
-    rc, out, _ = _fwd(sock, ["--version"])
-    assert rc == 0 and __version__ in out
-    _fwd(sock, ["shutdown"])
-    t.join(30)

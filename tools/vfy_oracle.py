@@ -1,6 +1,6 @@
 """CPU oracle check of a count TSV (independent numpy path)."""
 
-# runnable from /root/repo (package not installed): put repo root on sys.path
+# runnable from the repo root (package not installed): put repo root on sys.path
 import os
 import sys
 
